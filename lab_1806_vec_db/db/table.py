@@ -1,0 +1,232 @@
+"""Metadata-carrying vector table.
+
+Parity target: `MetadataVecTable` (reference: src/database/metadata_vec_table.rs).
+Host-side metadata rows parallel to index rows + a DynamicIndex + an optional
+PQ sidecar, with the reference's lifecycle invariants:
+- any write clears the PQ table (metadata_vec_table.rs:64-81)
+- delete clears HNSW *and* PQ and downgrades to Flat, removing rows via
+  swap_remove (metadata_vec_table.rs:163-187)
+- build_pq_table defaults: train_proportion 0.1, n_bits 4, m = ceil(dim/3)
+  (metadata_vec_table.rs:112-152).  Divergence: the reference validates
+  n_bits then hard-codes 4 (metadata_vec_table.rs:140); we honor the
+  requested value.
+- search routing: (ef, pq) -> knn_pq, ef -> knn_with_ef, else knn; then
+  upper_bound filter + metadata join (metadata_vec_table.rs:194-212)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .dynamic_index import DynamicIndex
+from ..models import PQTable
+from ..utils import serde
+from ..utils.config import PQConfig
+
+
+class MetadataVecTable:
+    def __init__(
+        self,
+        dim: int,
+        dist: str,
+        seed: int | None = None,
+        data_type: str = "float32",
+    ):
+        self.metadata: list[dict[str, str]] = []
+        self.inner = DynamicIndex(dim, dist, data_type)
+        self.pq: PQTable | None = None
+        self._seed = seed
+
+    @property
+    def data_type(self) -> str:
+        return self.inner.data_type
+
+    def _cast_rows(self, vecs) -> np.ndarray:
+        """Cast input rows to the table dtype.  uint8 tables apply the
+        reference's `as u8` semantics — round toward zero, saturate
+        (src/scalar.rs:19-35)."""
+        if self.data_type == "uint8":
+            a = np.atleast_2d(np.asarray(vecs, dtype=np.float64))
+            return np.clip(np.trunc(np.nan_to_num(a)), 0, 255).astype(np.uint8)
+        # one rounding to f32 either way: Python floats and f64 arrays round
+        # exactly as through an f64 copy, without the 2x host temporary
+        return np.atleast_2d(np.asarray(vecs, dtype=np.float32))
+
+    def __len__(self) -> int:
+        return len(self.inner)
+
+    @property
+    def dim(self) -> int:
+        return self.inner.dim
+
+    @property
+    def dist(self) -> str:
+        return self.inner.dist
+
+    # ---- writes ----
+    def add(self, vec, metadata: dict[str, str]) -> None:
+        self.clear_pq_table()
+        self.metadata.append(dict(metadata))
+        self.inner.add(self._cast_rows(vec)[0])
+
+    def batch_add(self, vec_list, metadata_list) -> None:
+        if len(vec_list) != len(metadata_list):
+            raise ValueError("Length mismatch for vec_list and metadata_list")
+        if len(vec_list) == 0:
+            return
+        self.clear_pq_table()
+        self.metadata.extend(dict(m) for m in metadata_list)
+        self.inner.batch_add(self._cast_rows(vec_list))
+
+    def delete(self, pattern: dict[str, str]) -> int:
+        """Delete rows whose metadata matches all pattern keys exactly
+        (metadata_vec_table.rs:163-187)."""
+        self.clear_hnsw_index()
+        self.clear_pq_table()
+        matches = [
+            i
+            for i, m in enumerate(self.metadata)
+            if all(m.get(k) == v for k, v in pattern.items())
+        ]
+        flat = self.inner.inner  # downgraded above
+        self.inner.note_mutation()
+        for i in reversed(matches):
+            # swap_remove on metadata + vec store, mirroring the reference
+            last = len(self.metadata) - 1
+            self.metadata[i] = self.metadata[last]
+            self.metadata.pop()
+            flat.store.swap_remove(i)
+        return len(matches)
+
+    # ---- index lifecycle ----
+    def build_hnsw_index(self, ef_construction: int | None = None) -> None:
+        self.inner.build_hnsw(ef_construction, seed=self._seed)
+
+    def clear_hnsw_index(self) -> None:
+        self.inner.clear_hnsw()
+
+    def has_hnsw_index(self) -> bool:
+        return self.inner.is_hnsw
+
+    def build_pq_table(
+        self,
+        train_proportion: float | None = None,
+        n_bits: int | None = None,
+        m: int | None = None,
+    ) -> None:
+        if self.pq is not None:
+            return
+        if self.data_type == "uint8":
+            raise RuntimeError("PQ table requires a float32 table")
+        if len(self) == 0:
+            raise RuntimeError("Cannot build PQ table for an empty table")
+        proportion = 0.1 if train_proportion is None else train_proportion
+        if not (0.0 < proportion < 1.0):
+            raise RuntimeError("Train proportion must be in (0, 1)")
+        train_size = max(int(len(self) * proportion), 1)
+        n_bits = 4 if n_bits is None else n_bits
+        if n_bits not in (4, 8):
+            raise RuntimeError("n_bits must be 4 or 8")
+        m = -(-self.dim // 3) if m is None else m
+        if not (1 <= m <= self.dim):
+            raise RuntimeError("m must be in 1..=dim")
+        cfg = PQConfig(
+            n_bits=n_bits,
+            m=m,
+            dist=self.dist,
+            k_means_size=train_size,
+            k_means_max_iter=20,
+            k_means_tol=1e-6,
+        )
+        vectors = self.inner.inner.store.numpy().astype(np.float32, copy=False)
+        self.pq = PQTable.train(vectors, cfg, seed=self._seed or 0)
+
+    def clear_pq_table(self) -> None:
+        self.pq = None
+
+    def has_pq_table(self) -> bool:
+        return self.pq is not None
+
+    # ---- search (metadata_vec_table.rs:194-212) ----
+    def search(
+        self,
+        query,
+        k: int,
+        ef: int | None = None,
+        upper_bound: float | None = None,
+    ) -> list[tuple[dict[str, str], float]]:
+        if len(self) == 0:
+            return []
+        query = self._cast_rows(query)[0]
+        if ef is not None and self.pq is not None:
+            results = self.inner.knn_pq(query, k, ef, self.pq)
+        elif ef is not None:
+            results = self.inner.knn_with_ef(query, k, ef)
+        else:
+            results = self.inner.knn(query, k)
+        ub = float("inf") if upper_bound is None else upper_bound
+        return [
+            (dict(self.metadata[p.index]), p.distance)
+            for p in results
+            if p.distance <= ub
+        ]
+
+    def batch_search(
+        self,
+        queries,
+        k: int,
+        ef: int | None = None,
+        upper_bound: float | None = None,
+    ) -> list[list[tuple[dict[str, str], float]]]:
+        """Device extension: batched search. One device dispatch carries
+        the whole query batch (the reference's multi-thread fan-out,
+        examples/bench.rs:414-418, becomes device batching). Routing matches
+        `search`."""
+        queries = self._cast_rows(queries)
+        if len(self) == 0:
+            return [[] for _ in range(len(queries))]
+        if ef is not None and self.pq is not None:
+            d, ids = self.inner.knn_pq_batch(queries, k, ef, self.pq)
+        elif ef is not None and self.inner.is_hnsw:
+            d, ids = self.inner.knn_with_ef_batch(queries, k, ef)
+        else:
+            # Flat ignores ef (dynamic_index.rs:75-80); HNSW without ef uses
+            # its default_ef via knn_batch.  Dispatch through DynamicIndex so
+            # the VECDB_MESH opt-in covers batched search too.
+            d, ids = self.inner.knn_batch(queries, k)
+        ub = float("inf") if upper_bound is None else upper_bound
+        out = []
+        for qi in range(len(queries)):
+            row = []
+            for dist_val, idx in zip(d[qi], ids[qi]):
+                if idx >= 0 and dist_val <= ub:
+                    row.append((dict(self.metadata[int(idx)]), float(dist_val)))
+            out.append(row)
+        return out
+
+    def extract_data(self) -> list[tuple[list[float], dict[str, str]]]:
+        vecs = self.inner.inner.store.numpy()
+        return [
+            (vecs[i].astype(float).tolist(), dict(self.metadata[i]))
+            for i in range(len(self))
+        ]
+
+    # ---- serde (metadata_vec_table.rs:48-61; single-file .db checkpoint) ----
+    def save(self, path) -> None:
+        arrays, meta = self.inner.state()
+        if self.pq is not None:
+            pq_arrays, pq_meta = self.pq.state()
+            arrays.update(pq_arrays)
+            meta.update(pq_meta)
+        meta["metadata"] = self.metadata
+        serde.save_arrays(path, arrays, meta)
+
+    @classmethod
+    def load(cls, path) -> "MetadataVecTable":
+        arrays, meta = serde.load_arrays(path)
+        self = cls.__new__(cls)
+        self.inner = DynamicIndex.from_state(arrays, meta)
+        self.metadata = [dict(m) for m in meta.get("metadata", [])]
+        self.pq = PQTable.from_state(arrays, meta) if "pq" in meta else None
+        self._seed = None
+        return self

@@ -1,48 +1,19 @@
 """Build the native extension in-place.
 
 Usage: python native/build.py
-Produces lab_1806_vec_db_tpu/_vecdb_native.<abi>.so via g++ directly (no
+Produces lab_1806_vec_db/_vecdb_native.<abi>.so with g++ (no
 pybind11/setuptools dependency at runtime; this is a single-TU extension).
+The package also builds it by itself at first use.
 """
 
 from __future__ import annotations
 
 import os
-import subprocess
 import sys
-import sysconfig
-
-
-def build() -> str:
-    here = os.path.dirname(os.path.abspath(__file__))
-    repo = os.path.dirname(here)
-    src = os.path.join(here, "hnsw_native.cpp")
-    ext_suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
-    out = os.path.join(repo, "lab_1806_vec_db_tpu", "_vecdb_native" + ext_suffix)
-    include = sysconfig.get_paths()["include"]
-    cmd = [
-        "g++",
-        "-O3",
-        "-std=c++17",
-        "-shared",
-        "-fPIC",
-        "-fvisibility=hidden",
-        "-march=native",
-        "-funroll-loops",
-        f"-I{include}",
-        src,
-        "-o",
-        out,
-    ]
-    print(" ".join(cmd))
-    subprocess.check_call(cmd)
-    return out
-
 
 if __name__ == "__main__":
-    path = build()
-    print(f"Built {path}")
-    sys.path.insert(0, os.path.join(os.path.dirname(path), ".."))
-    from lab_1806_vec_db_tpu import _vecdb_native  # noqa
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from lab_1806_vec_db.models import native
 
-    print("Import OK:", _vecdb_native)
+    print(f"Built {native.build()}")
+    print("Import OK:", native.available())

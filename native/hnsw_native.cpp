@@ -1,8 +1,7 @@
 // Native (C++) HNSW query engine: low-latency single-query search.
 //
-// Role in the TPU framework: the device path (ops/beam.py) is built for
-// batched throughput — one dispatch carries hundreds of queries through the
-// MXU.  A single interactive `VecDB.search` call, however, pays ~ms of
+// Role in the framework: the device path (ops/beam.py) is built for
+// batched throughput — one dispatch carries hundreds of queries.  A single interactive `VecDB.search` call, however, pays ~ms of
 // dispatch latency for microseconds of work.  This module is the native
 // runtime fallback for that case: a cache-friendly best-first traversal over
 // the same dense link arrays the device uses (no separate index format).

@@ -14,8 +14,8 @@ import time
 import numpy as np
 import pytest
 
-from lab_1806_vec_db_tpu import VecDB, calc_dist
-from lab_1806_vec_db_tpu.db.manager import sanitize_key
+from lab_1806_vec_db import VecDB, calc_dist
+from lab_1806_vec_db.db.manager import sanitize_key
 
 
 def test_calc_dist():
@@ -85,7 +85,7 @@ def test_table_management(tmp_path):
 
 
 def test_batch_search(tmp_path):
-    """TPU-native extension: one device dispatch for a whole query batch;
+    """Device extension: one device dispatch for a whole query batch;
     per-query results must match single `search` calls."""
     db = VecDB(str(tmp_path / "db"))
     db.create_table_if_not_exists("t", 8)
@@ -232,7 +232,7 @@ def test_concurrent_ops(tmp_path):
 
 
 def test_brief_toml_roundtrip(tmp_path):
-    from lab_1806_vec_db_tpu.db.manager import _Brief
+    from lab_1806_vec_db.db.manager import _Brief
 
     b = _Brief()
     f1 = b.insert("table a")
@@ -249,7 +249,7 @@ def test_readers_overlap():
     """Two read() holders on one ThreadSavingManager must overlap in
     wall-clock (many-readers RwLock semantics, reference mod.rs:157) —
     with an exclusive lock the rendezvous below would deadlock."""
-    from lab_1806_vec_db_tpu.db.thread_save import ThreadSavingManager
+    from lab_1806_vec_db.db.thread_save import ThreadSavingManager
 
     class Obj:
         def save(self, path):
@@ -278,7 +278,7 @@ def test_readers_overlap():
 def test_writer_excludes_readers_and_marks_dirty(tmp_path):
     """write() is exclusive against read(), sets the dirty mark, and the
     background saver persists after the writer releases."""
-    from lab_1806_vec_db_tpu.db.thread_save import ThreadSavingManager
+    from lab_1806_vec_db.db.thread_save import ThreadSavingManager
 
     saved = []
 
@@ -316,7 +316,7 @@ def test_writer_excludes_readers_and_marks_dirty(tmp_path):
 
 
 def test_mesh_opt_in_search(tmp_path, monkeypatch):
-    """VECDB_TPU_MESH=8 routes float32-Flat table searches through the
+    """VECDB_MESH=8 routes float32-Flat table searches through the
     sharded scan mirror (parallel/sharded.py) with identical results, and
     writes invalidate the mirror (VERDICT r2 item 3: multi-chip reachable
     from the product surface)."""
@@ -329,7 +329,7 @@ def test_mesh_opt_in_search(tmp_path, monkeypatch):
     db.batch_add("t", vecs[:100].tolist(), [{"i": str(i)} for i in range(100)])
     base = db.search("t", q.tolist(), 5)
 
-    monkeypatch.setenv("VECDB_TPU_MESH", "8")
+    monkeypatch.setenv("VECDB_MESH", "8")
     meshed = db.search("t", q.tolist(), 5)
     assert [m for m, _ in meshed] == [m for m, _ in base]
     np.testing.assert_allclose(
@@ -351,13 +351,13 @@ def test_mesh_opt_in_search(tmp_path, monkeypatch):
     # uint8 tables ride the mirror too (f32-cast rows; the reference's u8
     # arithmetic is f32-mediated, src/scalar.rs:19-30): results must equal
     # the single-chip exact-u8 path
-    monkeypatch.delenv("VECDB_TPU_MESH")
+    monkeypatch.delenv("VECDB_MESH")
     db.create_table_if_not_exists("u", 24, "l2sqr", "uint8")
     db.batch_add("u", np.clip(vecs[:50] * 20 + 100, 0, 255).tolist(),
                  [{"j": str(i)} for i in range(50)])
     qu = np.clip(q * 20 + 100, 0, 255).tolist()
     u_base = db.search("u", qu, 3)
-    monkeypatch.setenv("VECDB_TPU_MESH", "8")
+    monkeypatch.setenv("VECDB_MESH", "8")
     u_mesh = db.search("u", qu, 3)
     assert [m for m, _ in u_mesh] == [m for m, _ in u_base]
     np.testing.assert_allclose([d for _, d in u_mesh], [d for _, d in u_base],
@@ -368,7 +368,7 @@ def test_mesh_opt_in_search(tmp_path, monkeypatch):
     # single-chip exact scan of the same rows
     db.build_hnsw_index("t")
     hn = db.search("t", q.tolist(), 5, ef=32)
-    monkeypatch.delenv("VECDB_TPU_MESH")
+    monkeypatch.delenv("VECDB_MESH")
     flat_exact = sorted(base, key=lambda md: md[1])
     assert [m for m, _ in hn] == [m for m, _ in flat_exact[:5]]
 
@@ -377,10 +377,10 @@ def test_mesh_opt_in_search(tmp_path, monkeypatch):
     # with a PQ table present, (ef, pq)-routed searches serve exact results
     # from the sharded scan
     db.build_pq_table("t", train_proportion=0.99)
-    monkeypatch.setenv("VECDB_TPU_MESH", "8")
+    monkeypatch.setenv("VECDB_MESH", "8")
     pq_mesh = db.search("t", q.tolist(), 5, ef=32)
     assert [m for m, _ in pq_mesh] == [m for m, _ in flat_exact[:5]]
     pq_batch = db.batch_search("t", [q.tolist()], 5, ef=32)
     assert [m for m, _ in pq_batch[0]] == [m for m, _ in flat_exact[:5]]
-    monkeypatch.delenv("VECDB_TPU_MESH")
+    monkeypatch.delenv("VECDB_MESH")
     db.close()

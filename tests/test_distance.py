@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lab_1806_vec_db_tpu.ops import distance as D
+from lab_1806_vec_db.ops import distance as D
 
 EPS = 1e-5
 

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from lab_1806_vec_db_tpu.models import FlatIndex
-from lab_1806_vec_db_tpu.ops import distance as D
+from lab_1806_vec_db.models import FlatIndex
+from lab_1806_vec_db.ops import distance as D
 
 
 def numpy_knn(base, query, k, dist):
@@ -45,7 +45,7 @@ def test_oracle_parity(dist, gist_1000, rng):
 
 def test_blocked_scan_matches_single_tile(gist_1000):
     """The blocked running-top-k path must agree with the one-GEMM path."""
-    from lab_1806_vec_db_tpu.ops import topk as T
+    from lab_1806_vec_db.ops import topk as T
     import jax.numpy as jnp
 
     vecs = gist_1000[:512, :64]
@@ -136,7 +136,7 @@ def test_device_int8_lane_padding(dist):
     must agree with scans over an unpadded quantization (zeros are
     dot-transparent), and incremental row sync must preserve the width."""
     import jax.numpy as jnp
-    from lab_1806_vec_db_tpu.ops import topk as T
+    from lab_1806_vec_db.ops import topk as T
 
     rng = np.random.default_rng(1)
     dim = 60  # pads to 128
@@ -185,7 +185,7 @@ def test_dense_cluster_fallback_to_exact():
     depth; the store's quantization self-test must detect this and route
     the search to the exact f32 scan."""
     import jax.numpy as jnp
-    from lab_1806_vec_db_tpu.models import flat as flat_mod
+    from lab_1806_vec_db.models import flat as flat_mod
 
     rng = np.random.default_rng(7)
     n_clusters, per, dim = 24, 1024, 48
@@ -212,13 +212,13 @@ def test_dense_cluster_fallback_to_exact():
 
 
 def test_sorted_ingest_scan_permutation():
-    """Cluster-SORTED storage order must not degrade the packed chunk-min
-    scan: the int8 mirror's fixed permutation de-clusters storage, otherwise
-    the kernel keeps one survivor per 128 contiguous rows and a query's
-    co-located true neighbors annihilate each other."""
+    """Cluster-SORTED storage order must not degrade the chunk-min scan
+    kernel: the int8 mirror's fixed permutation de-clusters storage,
+    otherwise the kernel keeps one survivor per 128 contiguous rows and a
+    query's co-located true neighbors annihilate each other."""
     import jax.numpy as jnp
-    from lab_1806_vec_db_tpu.ops import pallas_scan as PS
-    from lab_1806_vec_db_tpu.ops import topk as T
+    from lab_1806_vec_db.ops import scan_triton as ST
+    from lab_1806_vec_db.ops import topk as T
 
     rng = np.random.default_rng(3)
     # healthy gaps (centers near origin, noise comparable): int8 is fine,
@@ -237,10 +237,8 @@ def test_sorted_ingest_scan_permutation():
     _, gt = index.knn_batch(queries, 10, exact=True)
 
     b8, sc, c8, perm = index.store.device_int8()
-    cap = b8.shape[0]
-    _, cand = PS.scan_candidates_int8_packed(
-        jnp.asarray(queries), b8, sc, c8, jnp.int32(cap), 40, "l2sqr",
-        interpret=True,
+    _, cand = ST.scan_candidates_int8(
+        jnp.asarray(queries), b8, sc, c8, 40, "l2sqr", interpret=True
     )
     cand = np.asarray(T.decode_perm(cand, perm, jnp.int32(len(base))))
     surv = np.mean([len(set(gt[q]) & set(cand[q])) / 10 for q in range(16)])
@@ -253,7 +251,7 @@ def test_cosine_obtuse_query_with_sentinels():
     sentinels must lose to real rows across the whole [0, 2] cosine range
     (regression: a d=1.0 sentinel once outranked every obtuse neighbor)."""
     import jax.numpy as jnp
-    from lab_1806_vec_db_tpu.models import flat as flat_mod
+    from lab_1806_vec_db.models import flat as flat_mod
 
     rng = np.random.default_rng(11)
     dim = 48

@@ -7,9 +7,9 @@ import sys
 import numpy as np
 import pytest
 
-from lab_1806_vec_db_tpu.utils import io, serde
-from lab_1806_vec_db_tpu.utils.candidates import GroundTruth, recall
-from lab_1806_vec_db_tpu.utils.config import BenchConfig, VecDataConfig
+from lab_1806_vec_db.utils import io, serde
+from lab_1806_vec_db.utils.candidates import GroundTruth, recall
+from lab_1806_vec_db.utils.config import BenchConfig, VecDataConfig
 
 
 def test_raw_roundtrip(tmp_path, rng):
@@ -43,7 +43,7 @@ def test_fvecs(tmp_path, rng):
 
 
 def test_convert_fvecs_cli(tmp_path, rng):
-    from lab_1806_vec_db_tpu.cli import convert_fvecs
+    from lab_1806_vec_db.cli import convert_fvecs
 
     vecs = rng.standard_normal((4, 3)).astype(np.float32)
     src = tmp_path / "in.fvecs"
@@ -58,7 +58,7 @@ def test_convert_fvecs_cli(tmp_path, rng):
 
 
 def test_gen_gnd_cli(tmp_path, gist_1000):
-    from lab_1806_vec_db_tpu.cli import gen_gnd
+    from lab_1806_vec_db.cli import gen_gnd
 
     base_p = tmp_path / "base.bin"
     test_p = tmp_path / "test.bin"
@@ -139,8 +139,8 @@ def test_serde_atomic_arrays(tmp_path):
 
 def test_bench_harness_end_to_end(tmp_path, gist_1000):
     """Small end-to-end sweep through the harness (bench.rs parity)."""
-    from lab_1806_vec_db_tpu.bench import harness
-    from lab_1806_vec_db_tpu.cli import gen_gnd
+    from lab_1806_vec_db.bench import harness
+    from lab_1806_vec_db.cli import gen_gnd
 
     base_p, test_p = tmp_path / "base.bin", tmp_path / "test.bin"
     io.save_raw(base_p, gist_1000[:200, :16])

@@ -4,8 +4,8 @@ oracle-identity against Flat at clipped dim, plus serde roundtrip)."""
 import numpy as np
 import pytest
 
-from lab_1806_vec_db_tpu.models import FlatIndex, IVFIndex
-from lab_1806_vec_db_tpu.utils.config import IVFConfig
+from lab_1806_vec_db.models import FlatIndex, IVFIndex
+from lab_1806_vec_db.utils.config import IVFConfig
 
 
 @pytest.fixture(scope="module")

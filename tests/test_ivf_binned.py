@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lab_1806_vec_db_tpu.models import FlatIndex, IVFIndex
-from lab_1806_vec_db_tpu.ops import binning as BN
-from lab_1806_vec_db_tpu.utils.config import IVFConfig
+from lab_1806_vec_db.models import FlatIndex, IVFIndex
+from lab_1806_vec_db.ops import binning as BN
+from lab_1806_vec_db.utils.config import IVFConfig
 
 
 def test_bin_queries_inverts_probe_map():
@@ -62,7 +62,7 @@ def test_binned_search_recall(dist):
     _, gt = flat.knn_batch(queries, 10, exact=True)
 
     # all lists probed -> candidate pool covers everything: group-min-grade
-    d, i = index._knn_device_binned(jnp.asarray(queries), 10, 4, interpret=True)
+    d, i = index._knn_device_binned(jnp.asarray(queries), 10, 4)
     d, i = np.asarray(d), np.asarray(i)
     recall = np.mean([len(set(gt[q]) & set(i[q])) / 10 for q in range(len(queries))])
     assert recall >= 0.95
@@ -70,7 +70,7 @@ def test_binned_search_recall(dist):
     assert all(np.all(np.diff(d[q][np.isfinite(d[q])]) >= -1e-6) for q in range(len(queries)))
 
     # realistic probe count on well-separated clusters
-    d2, i2 = index._knn_device_binned(jnp.asarray(queries), 10, 2, interpret=True)
+    d2, i2 = index._knn_device_binned(jnp.asarray(queries), 10, 2)
     i2 = np.asarray(i2)
     recall2 = np.mean([len(set(gt[q]) & set(i2[q])) / 10 for q in range(len(queries))])
     assert recall2 >= 0.9
@@ -83,7 +83,7 @@ def test_binned_agrees_with_gathered_path():
     base, queries = _clustered(4000, 48, 16, seed=3, n_clusters=4)
     index = IVFIndex.from_numpy(base, "l2sqr", IVFConfig(k=4), seed=1)
     d_old, i_old = index.knn_batch(queries, 5, n_probes=4)  # CPU: gathered path
-    d_new, i_new = index._knn_device_binned(jnp.asarray(queries), 5, 4, interpret=True)
+    d_new, i_new = index._knn_device_binned(jnp.asarray(queries), 5, 4)
     d_new, i_new = np.asarray(d_new), np.asarray(i_new)
     overlap = np.mean(
         [len(set(i_old[q]) & set(i_new[q])) / 5 for q in range(len(queries))]
@@ -98,7 +98,7 @@ def test_binned_agrees_with_gathered_path():
 
 def test_binned_overflow_segment(monkeypatch):
     """Rows spilled past the list cap must stay findable (overflow scan)."""
-    from lab_1806_vec_db_tpu.models import ivf as ivf_mod
+    from lab_1806_vec_db.models import ivf as ivf_mod
 
     monkeypatch.setattr(ivf_mod, "_LCAP_QUANTILE", 0.0)  # cap at min length
     base, queries = _clustered(6000, 64, 30, n_clusters=4, seed=5)
@@ -106,7 +106,7 @@ def test_binned_overflow_segment(monkeypatch):
     assert index._device_sorted()[5] is not None  # overflow segment exists
     flat = FlatIndex.from_numpy(base, "l2sqr")
     _, gt = flat.knn_batch(queries, 10, exact=True)
-    _, i = index._knn_device_binned(jnp.asarray(queries), 10, 4, interpret=True)
+    _, i = index._knn_device_binned(jnp.asarray(queries), 10, 4)
     i = np.asarray(i)
     recall = np.mean([len(set(gt[q]) & set(i[q])) / 10 for q in range(len(queries))])
     assert recall >= 0.95
@@ -119,7 +119,7 @@ def test_binned_small_batch_pads_dont_evict_probes():
     index = IVFIndex.from_numpy(base, "l2sqr", IVFConfig(k=4), seed=1)
     flat = FlatIndex.from_numpy(base, "l2sqr")
     _, gt = flat.knn_batch(queries, 10, exact=True)
-    _, i = index._knn_device_binned(jnp.asarray(queries), 10, 4, interpret=True)
+    _, i = index._knn_device_binned(jnp.asarray(queries), 10, 4)
     i = np.asarray(i)
     recall = np.mean([len(set(gt[q]) & set(i[q])) / 10 for q in range(len(queries))])
     assert recall >= 0.95
@@ -128,24 +128,5 @@ def test_binned_small_batch_pads_dont_evict_probes():
 def test_binned_n_probes_exceeds_nlist():
     base, queries = _clustered(2000, 48, 16, seed=4, n_clusters=4)
     index = IVFIndex.from_numpy(base, "l2sqr", IVFConfig(k=4), seed=1)
-    d, i = index._knn_device_binned(jnp.asarray(queries), 5, 8, interpret=True)
+    d, i = index._knn_device_binned(jnp.asarray(queries), 5, 8)
     assert np.asarray(i).shape == (16, 5)
-
-
-def test_binned_split_rerank_matches_fused(monkeypatch):
-    """The split dispatch (candidates program + separate rerank, taken when
-    the fused program exceeds the HBM budget) must return exactly what the
-    fused program returns (ADVICE r3 #1: the split path only triggered at
-    multi-GB sizes, so no test executed it)."""
-    import lab_1806_vec_db_tpu.models.ivf as ivf_mod
-
-    base, queries = _clustered(4000, 48, 16, seed=5, n_clusters=4)
-    index = IVFIndex.from_numpy(base, "l2sqr", IVFConfig(k=4), seed=1)
-    q = jnp.asarray(queries)
-    d_fused, i_fused = index._knn_device_binned(q, 10, 4, interpret=True)
-    monkeypatch.setattr(ivf_mod, "_FUSED_HBM_BUDGET", 0)
-    d_split, i_split = index._knn_device_binned(q, 10, 4, interpret=True)
-    np.testing.assert_array_equal(np.asarray(i_split), np.asarray(i_fused))
-    np.testing.assert_allclose(
-        np.asarray(d_split), np.asarray(d_fused), rtol=1e-5, atol=1e-6
-    )

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lab_1806_vec_db_tpu.ops import kmeans as KM
+from lab_1806_vec_db.ops import kmeans as KM
 
 
 def test_tiny_two_clusters():

@@ -3,12 +3,16 @@
 import numpy as np
 import pytest
 
-from lab_1806_vec_db_tpu.models import FlatIndex, HNSWIndex, native
-from lab_1806_vec_db_tpu.utils.config import HNSWConfig
+from lab_1806_vec_db.models import FlatIndex, HNSWIndex, native
+from lab_1806_vec_db.utils.config import HNSWConfig
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="native extension not built"
-)
+
+
+@pytest.fixture(autouse=True)
+def _native_engine():
+    # decided per test, not at import: parallel workers must collect alike
+    if not native.available():
+        pytest.skip("native extension could not be built (no C++ compiler)")
 
 
 def test_native_flat_matches_device(gist_1000):

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lab_1806_vec_db_tpu.parallel import sharded as S
-from lab_1806_vec_db_tpu.models import FlatIndex
+from lab_1806_vec_db.parallel import sharded as S
+from lab_1806_vec_db.models import FlatIndex
 
 
 def test_mesh_has_8_devices():
@@ -28,8 +28,8 @@ def test_sharded_flat_matches_single_device(gist_1000):
 def test_sharded_pq_matches_single_device(gist_1000):
     """Sharded ADC scan + per-chip exact rerank must match the single-device
     Flat knn_pq path."""
-    from lab_1806_vec_db_tpu.models import PQTable
-    from lab_1806_vec_db_tpu.utils.config import PQConfig
+    from lab_1806_vec_db.models import PQTable
+    from lab_1806_vec_db.utils.config import PQConfig
 
     base = gist_1000[:300, :48].copy()
     queries = gist_1000[500:508, :48].copy()
@@ -89,7 +89,7 @@ def test_sharded_ivf_matches_probe_oracle(gist_1000):
     """Sharded IVF with injected centroids must return exactly the top-k of
     the union of the globally-probed lists (the per-chip posting segments
     partition each list across chips)."""
-    from lab_1806_vec_db_tpu.utils.config import IVFConfig
+    from lab_1806_vec_db.utils.config import IVFConfig
 
     base = gist_1000[:401, :32].copy()  # not divisible by 8
     queries = gist_1000[500:510, :32].copy()
@@ -115,7 +115,7 @@ def test_sharded_ivf_distributed_fit_all_probes_is_exact(gist_1000):
     """With every list probed, sharded IVF equals the exact sharded scan —
     exercises the distributed k-means fit (sample fit + sharded Lloyd
     refinement) end to end."""
-    from lab_1806_vec_db_tpu.utils.config import IVFConfig
+    from lab_1806_vec_db.utils.config import IVFConfig
 
     base = gist_1000[:300, :24].copy()
     queries = gist_1000[400:408, :24].copy()
@@ -134,7 +134,7 @@ def test_sharded_hnsw_exhaustive_ef_is_exact(gist_1000):
     """With ef >= shard size every per-shard beam search is exhaustive, so
     the sharded HNSW must equal the exact sharded scan (the oracle pattern
     of hnsw_index.rs:713-790 lifted to the mesh)."""
-    from lab_1806_vec_db_tpu.utils.config import HNSWConfig
+    from lab_1806_vec_db.utils.config import HNSWConfig
 
     base = gist_1000[:280, :24].copy()  # 35/chip, not divisible by 8
     queries = gist_1000[400:410, :24].copy()
@@ -151,7 +151,7 @@ def test_sharded_hnsw_distances_are_exact_and_sorted(gist_1000):
     """At working ef the returned distances must be the true distances of
     the returned global ids, ascending per row (beam runs on the exact f32
     shard, so the beam head is the answer)."""
-    from lab_1806_vec_db_tpu.utils.config import HNSWConfig
+    from lab_1806_vec_db.utils.config import HNSWConfig
 
     base = gist_1000[:640, :32].copy()
     queries = gist_1000[700:712, :32].copy()
@@ -196,7 +196,7 @@ def test_sharded_ivf_serde_roundtrip_and_mesh_resize(tmp_path, gist_1000):
     """IVF checkpoints store centroids + the (n,) assignment; posting
     segments are rebuilt for the TARGET mesh, so a checkpoint re-places
     onto a different device count."""
-    from lab_1806_vec_db_tpu.utils.config import IVFConfig
+    from lab_1806_vec_db.utils.config import IVFConfig
 
     base = gist_1000[:300, :24].copy()
     queries = gist_1000[400:408, :24].copy()
@@ -217,8 +217,8 @@ def test_sharded_ivf_serde_roundtrip_and_mesh_resize(tmp_path, gist_1000):
 
 
 def test_sharded_pq_flat_serde_roundtrip(tmp_path, gist_1000):
-    from lab_1806_vec_db_tpu.models import PQTable
-    from lab_1806_vec_db_tpu.utils.config import PQConfig
+    from lab_1806_vec_db.models import PQTable
+    from lab_1806_vec_db.utils.config import PQConfig
 
     base = gist_1000[:300, :48].copy()
     queries = gist_1000[500:506, :48].copy()
@@ -235,7 +235,7 @@ def test_sharded_pq_flat_serde_roundtrip(tmp_path, gist_1000):
 
 
 def test_sharded_hnsw_serde_roundtrip(tmp_path, gist_1000):
-    from lab_1806_vec_db_tpu.utils.config import HNSWConfig
+    from lab_1806_vec_db.utils.config import HNSWConfig
 
     base = gist_1000[:280, :24].copy()
     queries = gist_1000[400:410, :24].copy()
@@ -273,7 +273,7 @@ def test_sharded_hnsw_parallel_build_matches_serial(gist_1000):
     pinned to its own device — the multi-chip analog of rayon add_parallel,
     hnsw_index.rs:399-457) must produce the identical index: per-shard
     seeds are fixed, so parallel == serial bit-for-bit."""
-    from lab_1806_vec_db_tpu.utils.config import HNSWConfig
+    from lab_1806_vec_db.utils.config import HNSWConfig
 
     base = gist_1000[:240, :24].copy()
     queries = gist_1000[400:410, :24].copy()
@@ -291,10 +291,10 @@ def test_harness_mesh_sweep_end_to_end(tmp_path, gist_1000):
     """`mesh = 8` in a bench TOML runs the whole sweep through the sharded
     indexes (VERDICT r2 item 3: multi-chip reachable from the product
     surface)."""
-    from lab_1806_vec_db_tpu.bench import harness
-    from lab_1806_vec_db_tpu.cli import gen_gnd
-    from lab_1806_vec_db_tpu.utils import io
-    from lab_1806_vec_db_tpu.utils.config import BenchConfig
+    from lab_1806_vec_db.bench import harness
+    from lab_1806_vec_db.cli import gen_gnd
+    from lab_1806_vec_db.utils import io
+    from lab_1806_vec_db.utils.config import BenchConfig
 
     base_p, test_p = tmp_path / "base.bin", tmp_path / "test.bin"
     io.save_raw(base_p, gist_1000[:200, :16])
@@ -334,59 +334,3 @@ data_path = "{test_p}"
     assert cache_p.exists()
     res2 = harness.run_bench(cfg)
     assert res2["recall"][0] == 1.0
-
-
-def _ivfpq_fixture(gist_1000, n=800, dim=48, nlist=8):
-    from lab_1806_vec_db_tpu.utils.config import PQConfig
-
-    base = np.ascontiguousarray(gist_1000[:n, :dim])
-    queries = np.ascontiguousarray(gist_1000[900:910, :dim])
-    base_j = jnp.asarray(base)
-
-    def draw_rows(params, key, row_ids):
-        return base_j[jnp.clip(row_ids, 0, n - 1)]
-
-    row_gen = (draw_rows, (), jax.random.PRNGKey(0))
-    mesh = S.make_mesh()
-    idx = S.ShardedIVFPQIndex(
-        mesh, base, "l2sqr", nlist=nlist,
-        pq_config=PQConfig(n_bits=4, m=16, dist="l2sqr", k_means_size=400),
-        sample_rows=400, block_rows=256, row_gen=row_gen,
-    )
-    return idx, base, queries, row_gen, mesh
-
-
-def test_sharded_ivfpq_all_probes_is_exact(gist_1000):
-    """Oracle (VERDICT r4 item 4): probing EVERY list with a generous ef and
-    the exact refine, the sharded IVF-PQ search must return exactly the
-    exact kNN ids."""
-    idx, base, queries, _, _ = _ivfpq_fixture(gist_1000)
-    d, i = idx.knn_batch(queries, 5, n_probes=idx.nlist, ef=400, chunk=1,
-                         interpret=True)
-    exact = np.argsort(((base[None] - queries[:, None]) ** 2).sum(-1), axis=1)[:, :5]
-    np.testing.assert_array_equal(i, exact)
-    # returned distances are exact f32 of the returned ids, ascending
-    for r in range(len(queries)):
-        true = ((base[i[r]] - queries[r]) ** 2).sum(-1)
-        np.testing.assert_allclose(d[r], true, rtol=1e-4, atol=1e-5)
-        assert np.all(np.diff(d[r]) >= -1e-6)
-
-
-def test_sharded_ivfpq_recall_and_serde(tmp_path, gist_1000):
-    """Moderate probes give useful recall; a checkpoint re-places onto a
-    DIFFERENT mesh size with identical results (mesh-independent state)."""
-    idx, base, queries, row_gen, mesh = _ivfpq_fixture(gist_1000)
-    d1, i1 = idx.knn_batch(queries, 5, n_probes=6, ef=128, interpret=True)
-    exact = np.argsort(((base[None] - queries[:, None]) ** 2).sum(-1), axis=1)[:, :5]
-    rec = np.mean([len(set(i1[r]) & set(exact[r])) / 5 for r in range(len(queries))])
-    assert rec >= 0.6, rec
-
-    p = str(tmp_path / "sivfpq.npz")
-    idx.save(p)
-    mesh4 = S.make_mesh(4)
-    idx4 = S.ShardedIVFPQIndex.load(p, mesh4, external_base=base,
-                                    row_gen=row_gen)
-    # exhaustive probing stays exact on the re-placed mesh
-    _, i4 = idx4.knn_batch(queries, 5, n_probes=idx4.nlist, ef=400, chunk=1,
-                           interpret=True)
-    np.testing.assert_array_equal(i4, exact)

@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lab_1806_vec_db_tpu.ops import pq as P
-from lab_1806_vec_db_tpu.ops import distance as D
-from lab_1806_vec_db_tpu.models import PQTable, FlatIndex
-from lab_1806_vec_db_tpu.utils.config import PQConfig
+from lab_1806_vec_db.ops import pq as P
+from lab_1806_vec_db.ops import distance as D
+from lab_1806_vec_db.models import PQTable, FlatIndex
+from lab_1806_vec_db.utils.config import PQConfig
 
 
 def test_pq_groups():
@@ -94,11 +94,11 @@ def test_pq_serde_roundtrip(tmp_path, gist_1000):
 
 
 def test_hnsw_pq_mirror_route(gist_1000):
-    """knn_pq_batch route="mirror" (the TPU planner's pick when the int8
+    """knn_pq_batch route="mirror" (the accelerator planner's pick when the int8
     scan mirror is resident) returns exact-grade results; "auto" on CPU
     stays on the reference-shaped ADC plan; bad routes are rejected."""
-    from lab_1806_vec_db_tpu.models import HNSWIndex
-    from lab_1806_vec_db_tpu.utils.config import HNSWConfig
+    from lab_1806_vec_db.models import HNSWIndex
+    from lab_1806_vec_db.utils.config import HNSWConfig
 
     vecs = gist_1000[:400, :24].copy()
     queries = gist_1000[400:420, :24].copy()
@@ -124,10 +124,10 @@ def test_hnsw_pq_mirror_route_two_stage(gist_1000, monkeypatch):
     int8 two-stage plan with ef as the stage-1 survivor count: a spy on the
     stage-1 kernel proves the plumbing under test (flat.py rerank_depth=ef)
     is live rather than shadowed by the n<=8192 exact branch."""
-    import lab_1806_vec_db_tpu.models.flat as flat_mod
-    from lab_1806_vec_db_tpu.models import HNSWIndex
-    from lab_1806_vec_db_tpu.ops import topk as T
-    from lab_1806_vec_db_tpu.utils.config import HNSWConfig
+    import lab_1806_vec_db.models.flat as flat_mod
+    from lab_1806_vec_db.models import HNSWIndex
+    from lab_1806_vec_db.ops import topk as T
+    from lab_1806_vec_db.utils.config import HNSWConfig
 
     monkeypatch.setattr(flat_mod, "_EXACT_BELOW", 0)
     seen_r: list[int] = []

@@ -1,12 +1,12 @@
-"""PCA-projected stage-1 scan (ops/project.py + VECDB_TPU_SCAN=pca)."""
+"""PCA-projected stage-1 scan (ops/project.py + VECDB_SCAN=pca)."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lab_1806_vec_db_tpu.models import FlatIndex
-from lab_1806_vec_db_tpu.models import flat as flat_mod
-from lab_1806_vec_db_tpu.ops import project as PJ
+from lab_1806_vec_db.models import FlatIndex
+from lab_1806_vec_db.models import flat as flat_mod
+from lab_1806_vec_db.ops import project as PJ
 
 
 def _clustered(n, dim, n_queries, seed=0, n_clusters=16):

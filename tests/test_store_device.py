@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from lab_1806_vec_db_tpu.models import FlatIndex
-from lab_1806_vec_db_tpu.models import store as store_mod
-from lab_1806_vec_db_tpu.models.store import VecStore
+from lab_1806_vec_db.models import FlatIndex
+from lab_1806_vec_db.models import store as store_mod
+from lab_1806_vec_db.models.store import VecStore
 
 
 def _data(n=300, dim=48, seed=0):
@@ -65,7 +65,7 @@ def test_chunked_mirror_builders(monkeypatch):
 
 def test_native_single_query_on_device_born_store():
     """native.flat_knn_single must materialize the lazy host mirror."""
-    from lab_1806_vec_db_tpu.models import native
+    from lab_1806_vec_db.models import native
 
     x = _data(400, 32, seed=5)
     idx = FlatIndex.from_store(VecStore.from_device(jnp.asarray(x), "l2sqr"))

@@ -12,8 +12,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lab_1806_vec_db_tpu.models import FlatIndexU8, U8VecSet
-from lab_1806_vec_db_tpu.ops import u8 as U8
+from lab_1806_vec_db.models import FlatIndexU8, U8VecSet
+from lab_1806_vec_db.ops import u8 as U8
 
 
 def _oracle_l2(a, b):
@@ -116,7 +116,7 @@ def test_u8_rejects_wrong_dtype(rng):
 def test_db_uint8_table(tmp_path):
     """DB-layer u8: a uint8 table stores bytes, searches exactly, survives
     a save/load round trip, and refuses float-only features."""
-    from lab_1806_vec_db_tpu import VecDB
+    from lab_1806_vec_db import VecDB
 
     db = VecDB(str(tmp_path / "db"))
     db.create_table_if_not_exists("bytes", 4, "l2sqr", data_type="uint8")
